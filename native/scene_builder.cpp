@@ -1,8 +1,8 @@
 // Native scene builder: C++ implementation of the host-side scene assembly.
 //
 // The reference builds scenes in host C++ (CudaTracer/Scene.cpp:17-371); this
-// is the TPU framework's native equivalent, exporting a C ABI consumed via
-// ctypes (cuda_path_tracer_ss_tpu/native.py). It reproduces the same
+// is this framework's native equivalent, exporting a C ABI consumed via
+// ctypes (cuda_path_tracer_ss/native.py). It reproduces the same
 // geometry, including the MSVC rand() stream that the reference's unseeded
 // rnd() macro consumes (Scene.cpp:3), with right-to-left vec3 argument
 // evaluation as MSVC performed it.

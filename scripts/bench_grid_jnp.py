@@ -1,6 +1,6 @@
 """jnp-engine grid-vs-linear benchmark on the live backend.
 
-The uniform grid's home on TPU is the jnp gather engine: each ray walks its
+The uniform grid lives in the jnp gather engine: each ray walks its
 own cells via vectorized gathers (ops/grid.py DDA), so per-ray work tracks
 cells-on-ray x occupancy instead of O(prims). This script measures that on a
 primitive-heavy stress scene, at shapes small enough that the LINEAR
@@ -17,10 +17,10 @@ import jax.numpy as jnp
 
 sys.path.insert(0, ".")
 
-from cuda_path_tracer_ss_tpu.models import presets            # noqa: E402
-from cuda_path_tracer_ss_tpu.models.camera import Camera      # noqa: E402
-from cuda_path_tracer_ss_tpu.ops.grid import build_grid       # noqa: E402
-from cuda_path_tracer_ss_tpu.render.integrator import (       # noqa: E402
+from cuda_path_tracer_ss.models import presets            # noqa: E402
+from cuda_path_tracer_ss.models.camera import Camera      # noqa: E402
+from cuda_path_tracer_ss.ops.grid import build_grid       # noqa: E402
+from cuda_path_tracer_ss.render.integrator import (       # noqa: E402
     camera_arrays, render)
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
@@ -46,15 +46,13 @@ def bench(label, g, live_cutoff):
                       sample_offset=k * SPP, grid=g)
 
     t0 = time.perf_counter()
-    img = run(0)
-    s = float(img.sum())          # host read = real sync
+    img = jax.block_until_ready(run(0))
     compile_s = time.perf_counter() - t0
-    assert np.isfinite(s)
+    assert np.isfinite(float(img.sum()))
     t0 = time.perf_counter()
-    acc = run(1).sum()
-    for i in range(2, REPEATS + 1):
-        acc = acc + run(i).sum()
-    float(acc)
+    for i in range(1, REPEATS + 1):
+        out = run(i)
+    jax.block_until_ready(out)
     dt = time.perf_counter() - t0
     rate = W * H * SPP * REPEATS / dt
     print(f"{label:22s} compile {compile_s:7.1f}s  "

@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render import inverse
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
-from cuda_path_tracer_ss_tpu import native
-from cuda_path_tracer_ss_tpu.utils.image import write_png
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render import inverse
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss import native
+from cuda_path_tracer_ss.utils.image import write_png
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "renders")
 SIZE = int(os.environ.get("INVERT_SIZE", "96"))

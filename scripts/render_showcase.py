@@ -1,8 +1,10 @@
 #!/usr/bin/env python
 """Produce the showcase renders (the analog of the reference's
 CudaTracer/renders/): each preset at 512x512, 2000 spp, 15 bounces — the
-reference's showcase quality (README.md:32) — via the Pallas megakernel.
-Writes renders/<name>.png. Takes ~5s of TPU time per scene after compile."""
+reference's showcase quality (README.md:32) — via the fused Pallas-Triton
+kernel on a GPU. Writes renders/<name>.png.
+
+Usage: python scripts/render_showcase.py [preset ...]"""
 import os
 import sys
 import time
@@ -12,12 +14,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import jax
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays
-from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene, render_megakernel
-from cuda_path_tracer_ss_tpu import native
-from cuda_path_tracer_ss_tpu.utils.image import write_png
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render.integrator import camera_arrays
+from cuda_path_tracer_ss.ops.pallas.megakernel import pack_scene, render_megakernel
+from cuda_path_tracer_ss import native
+from cuda_path_tracer_ss.utils.image import write_png
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "renders")
 SIZE = 512
@@ -38,8 +40,9 @@ def main():
             n = min(CHUNK, SPP - done)
             # sample_clamp=1.0 reproduces the reference's per-frame [0,1]
             # clamp (its firefly suppression, CudaTracer.cu:72)
-            img = render_megakernel(packed, cp, 1000 + done, SIZE, SIZE, n,
-                                    BOUNCES, sample_clamp=1.0)
+            img = render_megakernel(packed, cp, 1000, SIZE, SIZE, n,
+                                    BOUNCES, sample_clamp=1.0,
+                                    sample_offset=done)
             acc += np.asarray(img, np.float64) * n
             done += n
             print(f"{name}: {done}/{SPP} spp  ({time.time()-t0:.1f}s)",

@@ -7,11 +7,11 @@ of VERDICT r3 ask #1."""
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render.bidir import render_bidir
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
-from cuda_path_tracer_ss_tpu.render.lighttrace import render_lighttrace
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render.bidir import render_bidir
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.render.lighttrace import render_lighttrace
 
 
 def test_nu_zero_limit_is_the_physical_estimator():
@@ -100,7 +100,7 @@ def test_caustic_inversion_bidir_beats_forward():
 
     Asserted at robust margins: bidir < 0.35, fwd > 0.6, bidir < 0.5*fwd.
     """
-    from cuda_path_tracer_ss_tpu.render import inverse
+    from cuda_path_tracer_ss.render import inverse
 
     scene = presets.shadowed_caustic()
     cp = camera_arrays(Camera())
@@ -159,7 +159,7 @@ def test_caustic_variance_reduction_quantified():
 
 
 def test_bidir_requires_area_light():
-    from cuda_path_tracer_ss_tpu.models.scene import (MaterialSpec,
+    from cuda_path_tracer_ss.models.scene import (MaterialSpec,
                                                       SceneBuilder)
     b = SceneBuilder()
     m = b.add_material(MaterialSpec(diffuse=(0.5, 0.5, 0.5), diff_avg=0.5))
@@ -179,7 +179,7 @@ def test_bidir_loss_gating_and_fd_grads():
     splat pixel indices are detached on both sides, so FD and AD see the
     same interior surface at this eps)."""
     import jax.numpy as jnp
-    from cuda_path_tracer_ss_tpu.render import inverse
+    from cuda_path_tracer_ss.render import inverse
 
     scene = presets.cornell_lambert()
     cp = camera_arrays(Camera())
@@ -208,8 +208,8 @@ def test_bidir_sharded_matches_single():
     over the same 8 devices == the single-device combined image (forward
     half bitwise by per-pixel streams; light half to splat-reorder
     tolerance, as in test_lighttrace_sharded_matches_single)."""
-    from cuda_path_tracer_ss_tpu.parallel import mesh as mesh_lib
-    from cuda_path_tracer_ss_tpu.render.bidir import render_bidir_sharded
+    from cuda_path_tracer_ss.parallel import mesh as mesh_lib
+    from cuda_path_tracer_ss.render.bidir import render_bidir_sharded
 
     scene = presets.cornell_lambert()
     cp = camera_arrays(Camera())
@@ -224,93 +224,3 @@ def test_bidir_sharded_matches_single():
     assert (np.abs(out - single) < 2e-5).mean() > 0.99
 
 
-@pytest.mark.slow
-def test_bidir_fast_engines_match_jnp():
-    """(slow: interpret-mode kernel builds) Round 4: bidir ON THE FUSED
-    ENGINES — the physical megakernel with in-kernel MIS carries plus the
-    light-tracing kernel — against the jnp render_bidir. Same streams,
-    shared chain-model factors; forward half max 3e-8. The image-level
-    band on the light half is scatter-add ORDER noise over 2048 splats —
-    the per-path comparison below pins the actual per-record agreement at
-    ~2e-7 relative with identical splat support (round 5: the round-4
-    'borderline-gate splats' hypothesis was wrong; no gate ever flips)."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    from cuda_path_tracer_ss_tpu.render.bidir import render_bidir_fast
-
-    cp = camera_arrays(Camera())
-    for name in ("cornell_lambert", "caustic"):
-        scene = presets.get_scene(name)
-        jn = np.asarray(render_bidir(scene, cp, 16, 16, 2, 2048, 0,
-                                     max_bounces=4))
-        mk = np.asarray(render_bidir_fast(pack_scene(scene), cp, 16, 16,
-                                          2, 2048, 0, max_bounces=4,
-                                          interpret=True))
-        d = np.abs(jn - mk)
-        assert d.mean() < 2e-5, (name, d.mean())
-        assert (d < 5e-5).mean() > 0.99, (name, (d < 5e-5).mean())
-        assert jn.mean() > 1e-3
-
-
-@pytest.mark.slow
-def test_bidir_light_half_per_path_parity():
-    """Round 5 (VERDICT r4 weak #3): pin the fused-bidir light half at the
-    same rigor as the forward half. Every light path's splat set is
-    compared RECORD-BY-RECORD between the jnp tracer (per-path
-    lighttrace_block images) and the light kernel's records: identical
-    pixel support (no gate ever decides differently — the round-4
-    'borderline-gate splats' never existed) and values agreeing to float
-    op-order noise (measured ~8e-6 relative on CPU, where XLA's fusion
-    reassociates the long splat products differently per engine; ~2e-7
-    on TPU). A real MIS-carry regression in either engine breaks this
-    immediately — nothing structural can hide in the band."""
-    import jax
-    import jax.numpy as jnp
-    from cuda_path_tracer_ss_tpu.ops.pallas.lightkernel import _light_records
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    from cuda_path_tracer_ss_tpu.render.lighttrace import lighttrace_block
-    from cuda_path_tracer_ss_tpu.utils import rng as rng_mod
-
-    W = H = 16
-    NP_ = 256
-    B = 4
-    seed = rng_mod.seed_for(jnp.int32(0), 1)  # render_bidir's light seed
-    nu = 2048 / 2.0
-    for name in ("cornell_lambert", "caustic"):
-        scene = presets.get_scene(name)
-        cp = camera_arrays(Camera())
-        packed = pack_scene(scene)
-
-        def one(i):
-            return lighttrace_block(scene, cp, W, H,
-                                    jnp.asarray([i], jnp.int32), seed,
-                                    max_bounces=B, sample_idx=0,
-                                    bidir_nu=nu)
-        jimgs = np.asarray(jax.vmap(one)(
-            jnp.arange(NP_, dtype=jnp.int32))).reshape(NP_, -1, 3)
-
-        # kernel records with the SAME global n_paths for identical streams
-        pix, r, g, b = _light_records(packed, cp, seed, W, H, 2048, B, 1,
-                                      0, NP_, 0, nu, interpret=True)
-        B1, rows, L = np.asarray(pix).shape
-        pth = (np.arange(rows * L) // L) * L + np.arange(rows * L) % L
-        pth = np.broadcast_to(pth.reshape(1, rows * L), (B1, rows * L))
-        px = np.asarray(pix).reshape(B1, rows * L)
-        vals = np.stack([np.asarray(x).reshape(B1, rows * L)
-                         for x in (r, g, b)], -1)
-        kimgs = np.zeros((NP_, W * H, 3), np.float32)
-        ok = (pth < NP_) & (px >= 0) & (px < W * H)
-        flat = pth[ok] * (W * H) + px[ok]
-        np.add.at(kimgs.reshape(-1, 3), flat, vals[ok])
-
-        d = np.abs(kimgs - jimgs)
-        vmax = max(np.abs(jimgs).max(), 1e-6)
-        assert d.max() < 3e-5 * vmax, (name, d.max(), vmax)
-        # identical splat SUPPORT: a pixel is touched by a path on one
-        # engine iff it is on the other
-        sj = jimgs.reshape(NP_, -1, 3).sum(-1) != 0.0
-        sk = kimgs.reshape(NP_, -1, 3).sum(-1) != 0.0
-        mismatch = (sj != sk)
-        # values can round to exactly 0.0 on one side only below 1e-7 —
-        # everything above that must agree in support
-        sig = np.maximum(np.abs(jimgs).sum(-1), np.abs(kimgs).sum(-1))
-        assert not np.any(mismatch & (sig > 1e-7)), name

@@ -3,9 +3,9 @@ import math
 
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models.camera import (
+from cuda_path_tracer_ss.models.camera import (
     Camera, quat_from_euler, quat_mul, quat_rotate, quat_to_matrix)
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, eye_rays_for_indices
+from cuda_path_tracer_ss.render.integrator import camera_arrays, eye_rays_for_indices
 
 import jax.numpy as jnp
 

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.cli import main
-from cuda_path_tracer_ss_tpu.utils.image import read_png
+from cuda_path_tracer_ss.cli import main
+from cuda_path_tracer_ss.utils.image import read_png
 
 
 def test_render_writes_png_and_checkpoint(tmp_path, capsys):
@@ -63,7 +63,7 @@ def test_interact_drives_via_stdin(tmp_path, monkeypatch, capsys):
     # scripted session: render a pass, move camera (reset), toggle ray-trace
     # mode, screenshot, quit
     import io
-    import cuda_path_tracer_ss_tpu.cli as cli
+    import cuda_path_tracer_ss.cli as cli
 
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr("sys.stdin", io.StringIO("w\np\n0\nx\n"))
@@ -91,8 +91,8 @@ def test_failure_kill_resume_bit_identical(tmp_path):
 
     ck = str(tmp_path / "ck.npz")
     out = str(tmp_path / "killed.npy")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", CPT_TPU_TESTS="")
-    argv = [_sys.executable, "-m", "cuda_path_tracer_ss_tpu.cli", "render",
+    env = dict(os.environ, JAX_PLATFORMS="cpu", CPT_GPU_TESTS="")
+    argv = [_sys.executable, "-m", "cuda_path_tracer_ss.cli", "render",
             "--scene", "cornell_empty", "--width", "16", "--height", "16",
             "--spp", "6", "--bounces", "2", "--samples-per-pass", "1",
             "--engine", "jnp", "--out", out, "--checkpoint", ck,
@@ -119,9 +119,9 @@ def test_failure_kill_resume_bit_identical(tmp_path):
         raise AssertionError("worker never completed")
 
     # uninterrupted run in this process for the ground-truth accumulator
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.models.presets import get_scene
-    from cuda_path_tracer_ss_tpu.render.renderer import (
+    from cuda_path_tracer_ss.models.camera import Camera
+    from cuda_path_tracer_ss.models.presets import get_scene
+    from cuda_path_tracer_ss.render.renderer import (
         ProgressiveRenderer, RenderConfig)
     r = ProgressiveRenderer(get_scene("cornell_empty"), Camera(),
                             RenderConfig(width=16, height=16, spp=6,

@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 CASES = ["cornell_lambert", "cornell", "showcase"]
@@ -43,7 +43,7 @@ def test_golden_image_bidir():
     tests are all slow-tier, so without this a drift in either half's
     densities or the MIS weights would only surface at round snapshots.
     shadowed_caustic gives the light-trace splats real weight."""
-    from cuda_path_tracer_ss_tpu.render.bidir import render_bidir
+    from cuda_path_tracer_ss.render.bidir import render_bidir
     path = os.path.join(GOLDEN_DIR,
                         "bidir_shadowed_caustic_16x16_2spp_512p_3b.npy")
     want = np.load(path)

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render import integrator, inverse
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render import integrator, inverse
 
 W = H = 24
 SPP = 2
@@ -58,7 +58,7 @@ def test_grad_sphere_geometry_interior_matches_fd():
     # probe: a central crop whose rays all hit one big sphere interiorly,
     # lit by an unoccluded point light — there the full gradient IS the
     # interior term and AD must match FD tightly.
-    from cuda_path_tracer_ss_tpu.models.scene import (MaterialSpec,
+    from cuda_path_tracer_ss.models.scene import (MaterialSpec,
                                                       SceneBuilder)
 
     b = SceneBuilder()
@@ -98,8 +98,8 @@ def test_grad_physical_mode_matches_fd():
     where/clamp guards — FD-allclose on a scene that exercises all three
     light-sampled lobes (diffuse + Phong glossy + rough Cook-Torrance)
     proves none of them leaks a NaN or a wrong branch gradient."""
-    from cuda_path_tracer_ss_tpu.models.presets import add_cornell_box
-    from cuda_path_tracer_ss_tpu.models.scene import (MaterialSpec,
+    from cuda_path_tracer_ss.models.presets import add_cornell_box
+    from cuda_path_tracer_ss.models.scene import (MaterialSpec,
                                                       SceneBuilder)
     b = SceneBuilder()
     mg = b.add_material(MaterialSpec(
@@ -126,12 +126,11 @@ def test_grad_physical_mode_matches_fd():
     scale = np.maximum(np.abs(fd), np.abs(ad)).max() + 1e-8
     np.testing.assert_allclose(ad, fd, rtol=0.08, atol=0.02 * scale)
 
-    # physical=True on the pallas engine is now a supported combination
-    # (round 3: the megakernel carries the unbiased estimator + its VJP;
-    # engine agreement is tested in tests/test_pallas_vjp.py) — building
-    # the loss must not raise
-    inverse.make_loss(scene, cp, target, W, H, SPP, engine="pallas",
-                      physical=True)
+    # the fused kernel renders forward only: asking it for a loss to
+    # differentiate must fail loudly, never train on a silent zero
+    with pytest.raises(ValueError, match="no gradient"):
+        inverse.make_loss(scene, cp, target, W, H, SPP, engine="pallas",
+                          physical=True)
 
 
 @pytest.mark.slow
@@ -143,7 +142,7 @@ def test_grad_triangle_vertices_interior_matches_fd():
     # normal, NEE geometry all differentiable through Moller-Trumbore), so
     # AD must match FD tightly. Per-corner shading normals (tri_n*) get the
     # same check — they feed the surfel normal via barycentric interp.
-    from cuda_path_tracer_ss_tpu.models.scene import (MaterialSpec,
+    from cuda_path_tracer_ss.models.scene import (MaterialSpec,
                                                       SceneBuilder)
 
     b = SceneBuilder()

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder, translate, scale
-from cuda_path_tracer_ss_tpu.render import integrator
-from cuda_path_tracer_ss_tpu.utils import rng
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder, translate, scale
+from cuda_path_tracer_ss.render import integrator
+from cuda_path_tracer_ss.utils import rng
 
 from reference_tracer import SceneView, trace_one
 

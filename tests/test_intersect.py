@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
-from cuda_path_tracer_ss_tpu.ops.intersect import (
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder
+from cuda_path_tracer_ss.ops.intersect import (
     any_hit, nearest_hit, sphere_t, surfel_at, triangle_t)
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3
+from cuda_path_tracer_ss.ops.vec import Vec3
 
 
 def _rays(origins, directions):

@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.render import inverse
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.render import inverse
 
 
 def test_get_and_with_field_roundtrip():

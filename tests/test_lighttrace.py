@@ -6,11 +6,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
-from cuda_path_tracer_ss_tpu.render.lighttrace import render_lighttrace
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.render.lighttrace import render_lighttrace
 
 W = H = 24
 
@@ -30,7 +30,7 @@ def test_emitter_direct_splat_matches_forward():
     this pins the camera importance J_img = dA_img/dOmega to the exact
     inverse of the jittered eye-ray parameterization."""
     b = SceneBuilder()
-    from cuda_path_tracer_ss_tpu.models.scene import translate
+    from cuda_path_tracer_ss.models.scene import translate
     import numpy as _np
     m = b.add_material(MaterialSpec(emission=(2.0, 1.0, 0.5)))
     t = translate((0.0, 0.0, -4.0))
@@ -81,7 +81,7 @@ def test_lighttrace_renders_mirror_caustic_paths():
     compares the two estimators where the eye's first hit is diffuse
     (the left half — walls and floor receiving the mirror's caustic) and
     separately asserts the documented specular-view gap."""
-    from cuda_path_tracer_ss_tpu.models.presets import add_cornell_box
+    from cuda_path_tracer_ss.models.presets import add_cornell_box
     b = SceneBuilder()
     mm = b.add_material(MaterialSpec(
         diffuse=(0, 0, 0), diff_avg=0.0, specular=(0.95, 0.95, 0.95),
@@ -114,7 +114,7 @@ def test_backlit_surface_black_in_both():
     connection must not invent energy there (it uses a signed, clamped
     camera cosine and skips inside-lit vertices)."""
     b = SceneBuilder()
-    from cuda_path_tracer_ss_tpu.models.scene import translate
+    from cuda_path_tracer_ss.models.scene import translate
     md = b.add_material(MaterialSpec(diffuse=(0.8, 0.8, 0.8), diff_avg=0.8))
     n = (0.0, 0.0, 1.0)  # faces the camera at the origin
     b.add_triangle((-3, -3, -5), (3, -3, -5), (3, 3, -5), n, n, n, md)
@@ -151,9 +151,9 @@ def test_lighttrace_grad_emission_matches_fd():
     lighttrace loss w.r.t. the light's material emission matches central
     differences on the same path streams — the scatter-add's VJP gathers
     the adjoint image back onto every splat's continuous factors."""
-    from cuda_path_tracer_ss_tpu.render.inverse import (
+    from cuda_path_tracer_ss.render.inverse import (
         directional_fd_check, extract_params, make_loss, merge_params)
-    from cuda_path_tracer_ss_tpu.render.lighttrace import render_lighttrace
+    from cuda_path_tracer_ss.render.lighttrace import render_lighttrace
 
     scene = presets.cornell_lambert()
     cp = camera_arrays(Camera())
@@ -172,7 +172,7 @@ def test_lighttrace_engine_rejects_parity_light_fields():
     """al_power / point lights never enter light-path transport — asking
     the lighttrace engine to optimize them must raise, not return silent
     zero gradients."""
-    from cuda_path_tracer_ss_tpu.render.inverse import check_engine_fields
+    from cuda_path_tracer_ss.render.inverse import check_engine_fields
     with pytest.raises(ValueError, match="al_power"):
         check_engine_fields("lighttrace", ("al_power",))
     check_engine_fields("lighttrace", ("materials.emission",))  # fine
@@ -182,14 +182,14 @@ def test_lighttrace_invert_recovers_emission_scale():
     """Caustic-driven inverse rendering smoke: gradient-descend the light
     material's emission toward a brighter target through the light tracer;
     the loss must drop by >10x."""
-    from cuda_path_tracer_ss_tpu.render.inverse import invert
+    from cuda_path_tracer_ss.render.inverse import invert
 
     scene = presets.cornell_lambert()
     cp = camera_arrays(Camera())
     w = h = 12
 
     # target: same scene with 1.5x emission, rendered by the light tracer
-    from cuda_path_tracer_ss_tpu.render.inverse import (extract_params,
+    from cuda_path_tracer_ss.render.inverse import (extract_params,
                                                         merge_params)
     p = extract_params(scene, ("materials.emission",))
     bright = merge_params(scene, {"materials.emission":
@@ -232,7 +232,7 @@ def test_nonreciprocal_glass_gap_quantified():
     seed spread <<): lt/fwd = 1.019 @ ior 1.01, 1.32 @ 1.2, 1.36 @ 1.5
     (1.42 with the pure-reflection flag); diffuse-only regions agree to
     <2%. The assertions pin the ior-1.5 band and the diffuse agreement."""
-    from cuda_path_tracer_ss_tpu.models import presets
+    from cuda_path_tracer_ss.models import presets
     scene = presets.caustic()
     cp = camera_arrays(Camera())
     W2 = H2 = 32
@@ -248,42 +248,3 @@ def test_nonreciprocal_glass_gap_quantified():
     assert abs(ratio_d - 1.0) < 0.05, ratio_d
 
 
-@pytest.mark.slow
-def test_light_kernel_matches_jnp_tracer():
-    """(slow: two interpret-mode kernel builds, ~3 min)
-    Round 4: light tracing on the fused engine
-    (ops/pallas/lightkernel.py) — in-kernel path tracing + splat records,
-    XLA scatter-add outside. Same counter streams and formulas as the jnp
-    tracer; the two compilations can flip a borderline gate (visibility
-    epsilon, screen bound) on isolated paths, so the bar is a bounded
-    handful of splats, not bitwise (measured: max 4.3e-4 from ~1 flipped
-    splat at 4096 paths, mean 5e-7)."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.lightkernel import (
-        render_lighttrace_fast)
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-
-    scene = presets.cornell_lambert()
-    cp = camera_arrays(Camera())
-    w = h = 24
-    for nu in (None, 256.0):
-        jn = np.asarray(render_lighttrace(scene, cp, w, h, 4096, 3,
-                                          max_bounces=4, bidir_nu=nu))
-        mk = np.asarray(render_lighttrace_fast(
-            pack_scene(scene), cp, 3, w, h, 4096, max_bounces=4,
-            interpret=True, bidir_nu=nu))
-        d = np.abs(jn - mk)
-        assert d.mean() < 1e-5, (nu, d.mean())
-        assert d.max() < 2e-3, (nu, d.max())
-        assert (d < 2e-5).mean() > 0.995, (nu, (d < 2e-5).mean())
-        assert jn.mean() > 0.01
-
-
-def test_light_kernel_rejects_textured_scene():
-    from cuda_path_tracer_ss_tpu.ops.pallas.lightkernel import (
-        render_lighttrace_fast)
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    scene = presets.textured()
-    cp = camera_arrays(Camera())
-    with pytest.raises(ValueError, match="textured"):
-        render_lighttrace_fast(pack_scene(scene), cp, 0, 8, 8, 128,
-                               max_bounces=2, interpret=True)

@@ -6,10 +6,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu import native
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.ops import tonemap
-from cuda_path_tracer_ss_tpu.utils import image as image_io
+from cuda_path_tracer_ss import native
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.ops import tonemap
+from cuda_path_tracer_ss.utils import image as image_io
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="libptnative.so not built (make -C native)")

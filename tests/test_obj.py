@@ -2,10 +2,10 @@
 import numpy as np
 import jax
 
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder, translate, scale
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
-from cuda_path_tracer_ss_tpu.utils.obj import add_obj_mesh, parse_obj
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder, translate, scale
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.utils.obj import add_obj_mesh, parse_obj
 
 CUBE = """
 # unit cube
@@ -121,7 +121,7 @@ f 5 6 7 8
 def test_parse_mtl_projection():
     """MTL fields project onto the reference's material model (documented
     mapping in utils/obj.py::parse_mtl)."""
-    from cuda_path_tracer_ss_tpu.utils.obj import parse_mtl
+    from cuda_path_tracer_ss.utils.obj import parse_mtl
 
     mats = parse_mtl(MTL_LIB)
     assert set(mats) == {"glow", "redwall"}
@@ -143,7 +143,7 @@ def test_parse_mtl_projection():
 def test_add_obj_with_mtl_assigns_materials():
     """usemtl records route faces to the .mtl-derived materials: the glow
     quad emits, the red quad doesn't."""
-    from cuda_path_tracer_ss_tpu.utils.obj import add_obj_with_mtl
+    from cuda_path_tracer_ss.utils.obj import add_obj_with_mtl
 
     b = SceneBuilder()
     fallback = b.add_material(MaterialSpec(diffuse=(0.5, 0.5, 0.5),

@@ -1,9 +1,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.ops.optics import (
+from cuda_path_tracer_ss.ops.optics import (
     fresnel_reflectance, media_and_sin_t2, reflect_abs, reflect_signed, refract)
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3
+from cuda_path_tracer_ss.ops.vec import Vec3
 
 
 def test_media_selection_outside_inside():

@@ -1,13 +1,13 @@
-"""Megakernel semantics on CPU via Pallas interpret mode.
+"""The fused Pallas-Triton kernel on the CPU: its lowering for CUDA and
+its arithmetic in Pallas interpret mode.
 
-Round 2's counter-based RNG (utils/rng.py) gives the megakernel the SAME
-uniform streams as the jnp estimator, so the fused engine is testable without
-a TPU: interpret mode executes the kernel body with ordinary XLA ops. On the
-same platform the two engines agree to float-op-order noise (~1 ulp), which
-promotes golden-image regression and per-pixel parity to the fast engine —
-VERDICT round 1, missing items 2-3.
-
-Skipped automatically when CPT_TPU_TESTS=1 (interpret mode is a CPU tool).
+The counter-based RNG (utils/rng.py) gives the kernel the SAME uniform
+streams as the jnp estimator, so the fused engine is testable without a
+card: interpret mode executes the kernel body with ordinary XLA ops, and on
+the same platform the two engines agree to float-op-order noise. Lowering
+(``lowering_platforms=("cuda",)``) runs Pallas' Triton lowering here, which
+refuses what the route cannot express (non-power-of-two blocks, missing
+primitive rules); only the card's own compiler is out of reach.
 """
 import os
 
@@ -17,24 +17,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-pytestmark = pytest.mark.skipif(
-    jax.default_backend() == "tpu",
-    reason="interpret-mode parity tests are for the CPU suite")
-
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
 
 @pytest.fixture(scope="module")
 def env():
-    from cuda_path_tracer_ss_tpu.models import presets
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays
+    from cuda_path_tracer_ss.models import presets
+    from cuda_path_tracer_ss.models.camera import Camera
+    from cuda_path_tracer_ss.render.integrator import camera_arrays
     return presets, camera_arrays(Camera())
 
 
 def _both(presets, cp, scene, w=24, h=24, spp=2, bounces=4, seed=5):
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import render_fast2
-    from cuda_path_tracer_ss_tpu.render.integrator import render
+    from cuda_path_tracer_ss.ops.pallas.megakernel import render_fast2
+    from cuda_path_tracer_ss.render.integrator import render
 
     a = np.asarray(render_fast2(scene, cp, w, h, spp, seed,
                                 max_bounces=bounces, interpret=True))
@@ -66,8 +62,8 @@ def test_physical_per_pixel_parity_with_jnp(env, name):
     missing #2): same streams + same lane-plane formulas => per-pixel
     parity with the jnp engine's physical mode."""
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import render_fast2
-    from cuda_path_tracer_ss_tpu.render.integrator import render
+    from cuda_path_tracer_ss.ops.pallas.megakernel import render_fast2
+    from cuda_path_tracer_ss.render.integrator import render
 
     scene = getattr(presets, name)()
     a = np.asarray(render_fast2(scene, cp, 20, 20, 2, 7, max_bounces=5,
@@ -85,8 +81,8 @@ def test_physical_renderer_engine_parity(env):
     """ProgressiveRenderer drives physical mode on either engine now —
     the RenderConfig gate is gone."""
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.render.renderer import (
+    from cuda_path_tracer_ss.models.camera import Camera
+    from cuda_path_tracer_ss.render.renderer import (
         ProgressiveRenderer, RenderConfig)
 
     scene = presets.cornell()
@@ -102,10 +98,61 @@ def test_physical_renderer_engine_parity(env):
                                rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("name,physical", [
+    ("cornell", False),     # parity estimator, unrolled sweeps
+    ("cornell", True),      # physical (MIS) estimator
+    ("textured", False),    # per-lane texel / UV gathers
+    ("stress", False),      # 120 spheres: the dynamic fori_loop sweep
+])
+def test_kernel_lowers_for_cuda(env, name, physical):
+    """The production kernel (default tile and warps) lowers through
+    Pallas' Triton route for a CUDA device, from the CPU."""
+    presets, cp = env
+    from cuda_path_tracer_ss.ops.pallas import megakernel as mk
+
+    packed = mk.pack_scene(getattr(presets, name)())
+    fn = jax.jit(lambda pk, c, spp: mk.render_megakernel(
+        pk, c, 7, 64, 48, spp, max_bounces=6, physical=physical))
+    lowered = fn.trace(packed, cp, jnp.int32(4)).lower(
+        lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "path_trace" in text          # the named Triton custom call
+    assert "__gpu$xla.gpu.triton" in text
+
+
+@pytest.mark.parametrize("name,physical", [
+    ("cornell", True), ("textured", False), ("stress", False)])
+def test_interpret_parity_with_jnp(env, name, physical):
+    """Same streams + same platform => the engines agree per pixel; the
+    small image spans two programs of the production tile."""
+    presets, cp = env
+    from cuda_path_tracer_ss.ops.pallas.megakernel import render_fast2
+    from cuda_path_tracer_ss.render.integrator import render
+
+    scene = getattr(presets, name)()
+    a = np.asarray(render_fast2(scene, cp, 16, 12, 1, 5, max_bounces=3,
+                                interpret=True, physical=physical))
+    b = np.asarray(render(scene, cp, 16, 12, 1, jnp.int32(5), max_bounces=3,
+                          live_cutoff=None, physical=physical))
+    assert np.all(np.isfinite(a)) and a.max() > 0
+    close = np.isclose(a, b, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    np.testing.assert_allclose(a.mean((0, 1)), b.mean((0, 1)), rtol=1e-3)
+
+
+def test_tile_must_be_power_of_two(env, monkeypatch):
+    presets, cp = env
+    from cuda_path_tracer_ss.ops.pallas import megakernel as mk
+    monkeypatch.setattr(mk, "TILE", 96)     # read at trace time
+    with pytest.raises(ValueError, match="power of two"):
+        mk.render_megakernel(mk.pack_scene(presets.cornell()), cp, 0, 8, 6,
+                             1, interpret=True)
+
+
 def test_megakernel_golden_image(env):
     """Golden regression directly on the fused engine (cornell, fixed seed)."""
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import render_fast2
+    from cuda_path_tracer_ss.ops.pallas.megakernel import render_fast2
 
     img = np.asarray(render_fast2(presets.cornell(), cp, 32, 32, 8, 42,
                                   max_bounces=4, interpret=True))
@@ -119,7 +166,7 @@ def test_sample_offset_continues_streams(env):
     """spp=4 at offset 0 and 4 must average to the spp=8 render: progressive
     passes and sample-sharding reproduce a monolithic render exactly."""
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
+    from cuda_path_tracer_ss.ops.pallas.megakernel import (
         pack_scene, render_megakernel)
 
     packed = pack_scene(presets.cornell())
@@ -138,8 +185,8 @@ def test_progressive_renderer_engines_agree(env):
     """The frame driver produces the same image whichever engine runs it —
     resume and engine-switch are interchangeable now (VERDICT weak #1/#3)."""
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.render.renderer import (
+    from cuda_path_tracer_ss.models.camera import Camera
+    from cuda_path_tracer_ss.render.renderer import (
         ProgressiveRenderer, RenderConfig)
 
     scene = presets.cornell()
@@ -158,7 +205,7 @@ def test_progressive_renderer_engines_agree(env):
 @pytest.mark.slow
 def test_sample_clamp_interpret(env):
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
+    from cuda_path_tracer_ss.ops.pallas.megakernel import (
         pack_scene, render_megakernel)
 
     packed = pack_scene(presets.showcase())
@@ -178,8 +225,8 @@ def test_compat_int_accum_engines_agree(env):
     path per pixel except samples within ~1 ulp of an 8-bit bucket edge
     (VERDICT round 1, missing item 3 / next-round item 9)."""
     presets, cp = env
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.render.renderer import (
+    from cuda_path_tracer_ss.models.camera import Camera
+    from cuda_path_tracer_ss.render.renderer import (
         ProgressiveRenderer, RenderConfig)
 
     scene = presets.cornell()
@@ -199,25 +246,3 @@ def test_compat_int_accum_engines_agree(env):
     assert (diff > 0).mean() < 0.01, (diff > 0).mean()
 
 
-@pytest.mark.slow  # 19 s; opt-in flag with a documented-flat measurement
-def test_state_bf16_runs_and_approximates_f32():
-    """The opt-in bf16 radiance/throughput carry (a measured perf NEGATIVE
-    kept for the record, docs/PERF.md round 4) must still render correctly:
-    small image error vs the f32 carry, same hits/geometry."""
-    import numpy as np
-    from cuda_path_tracer_ss_tpu.models import presets
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
-        pack_scene, render_megakernel)
-    from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays
-
-    scene = presets.cornell()
-    cp = camera_arrays(Camera())
-    pk = pack_scene(scene)
-    f32 = np.asarray(render_megakernel(pk, cp, 0, 16, 16, 4, max_bounces=4,
-                                       interpret=True))
-    b16 = np.asarray(render_megakernel(pk, cp, 0, 16, 16, 4, max_bounces=4,
-                                       interpret=True, state_bf16=True))
-    assert np.all(np.isfinite(b16))
-    assert np.abs(f32 - b16).max() < 0.02, np.abs(f32 - b16).max()
-    np.testing.assert_allclose(b16.mean(), f32.mean(), rtol=0.01)

@@ -17,12 +17,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.ops.shading import (area_light_sample_uniform,
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.ops.shading import (area_light_sample_uniform,
                                                  shade_physical)
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.ops.vec import Vec3
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
 
 
 def _uniforms(key, n):
@@ -170,8 +170,8 @@ def test_physical_agreement_with_inside_diffuse_paths():
     scene = presets.cornell_lambert()
     mats = scene.materials
     # add a big translucent-diffuse sphere in front of the light
-    from cuda_path_tracer_ss_tpu.models.scene import Materials
-    from cuda_path_tracer_ss_tpu.ops.vec import Vec3 as V
+    from cuda_path_tracer_ss.models.scene import Materials
+    from cuda_path_tracer_ss.ops.vec import Vec3 as V
 
     def _cat(v, extra):
         return V(jnp.concatenate([v.x, jnp.float32(jnp.asarray([extra[0]]))]),
@@ -223,7 +223,7 @@ def test_phong_pdf_matches_sampler():
     the sphere (uniform-direction quadrature). Also checks normalization
     (g == 1) and the unnormalized-axis case the reference's mirror
     directions produce."""
-    from cuda_path_tracer_ss_tpu.ops.sampling import (phong_direction,
+    from cuda_path_tracer_ss.ops.sampling import (phong_direction,
                                                       phong_lobe_axis,
                                                       phong_pdf)
     n = 200000
@@ -264,8 +264,8 @@ def test_shade_physical_glossy_matches_quadrature():
     """The glossy NEE term == quadrature of its integrand
     prob * spec * phong_pdf(w) * L_e |cos_l| A / d^2 over the light
     (diffuse lobe zeroed to isolate it)."""
-    from cuda_path_tracer_ss_tpu.ops.sampling import phong_lobe_axis
-    from cuda_path_tracer_ss_tpu.ops.shading import GlossLobe
+    from cuda_path_tracer_ss.ops.sampling import phong_lobe_axis
+    from cuda_path_tracer_ss.ops.shading import GlossLobe
 
     scene = presets.cornell_empty()
     floor_y = float(jnp.min(scene.tri_v0.y))
@@ -295,7 +295,7 @@ def test_shade_physical_glossy_matches_quadrature():
 
     # quadrature over the light with the same phong_pdf (evaluated via the
     # same jax helper on the grid points, so only the measure math is tested)
-    from cuda_path_tracer_ss_tpu.ops.sampling import phong_pdf
+    from cuda_path_tracer_ss.ops.sampling import phong_pdf
     total = np.zeros(3)
     for li in range(scene.num_area_lights):
         tri0 = int(scene.al_tri0[li])
@@ -340,7 +340,7 @@ def test_beckmann_pdf_matches_sampler():
     (b) 1-D theta-quadrature of beckmann_pdf * 2 pi sin(theta) matches the
     same closed form — together they tie pdf <-> sampler. Includes the
     unnormalized-axis case (raw triangle surfel normals)."""
-    from cuda_path_tracer_ss_tpu.ops.sampling import (beckmann_direction,
+    from cuda_path_tracer_ss.ops.sampling import (beckmann_direction,
                                                       beckmann_pdf,
                                                       phong_lobe_axis)
     n = 200000
@@ -392,7 +392,7 @@ def test_shade_physical_ct_matches_quadrature():
     prob * spec * G(h)/nv * p_ct(w) * L_e |cos_l| A / d^2 over the light,
     with pdf and G re-derived independently in numpy (diffuse and Phong
     lobes zeroed to isolate it)."""
-    from cuda_path_tracer_ss_tpu.ops.shading import CTLobe
+    from cuda_path_tracer_ss.ops.shading import CTLobe
 
     scene = presets.cornell_empty()
     floor_y = float(jnp.min(scene.tri_v0.y))
@@ -482,8 +482,8 @@ def test_physical_ct_estimators_agree():
     pure BSDF sampling estimate the same image — the MIS weights for the
     reflection branch are exactly complementary, and the sampler's quirk
     branch (d.m > 0) keeps full emission weight."""
-    from cuda_path_tracer_ss_tpu.models.presets import add_cornell_box
-    from cuda_path_tracer_ss_tpu.models.scene import (MaterialSpec,
+    from cuda_path_tracer_ss.models.presets import add_cornell_box
+    from cuda_path_tracer_ss.models.scene import (MaterialSpec,
                                                       SceneBuilder)
     b = SceneBuilder()
     m = b.add_material(MaterialSpec(
@@ -510,8 +510,8 @@ def test_physical_glossy_estimators_agree():
     sphere, NEE+MIS (which now light-samples the glossy lobe too) and pure
     BSDF sampling estimate the same image; and the glossy NEE must not
     double-count (the MIS weights are exactly complementary)."""
-    from cuda_path_tracer_ss_tpu.models.presets import add_cornell_box
-    from cuda_path_tracer_ss_tpu.models.scene import (MaterialSpec,
+    from cuda_path_tracer_ss.models.presets import add_cornell_box
+    from cuda_path_tracer_ss.models.scene import (MaterialSpec,
                                                       SceneBuilder)
     b = SceneBuilder()
     m = b.add_material(MaterialSpec(

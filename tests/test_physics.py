@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
 
 
 def _furnace_scene(albedo=1.0, diff_avg=1.0):

@@ -5,12 +5,12 @@ import pytest
 
 import jax
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render_sample
-from cuda_path_tracer_ss_tpu.render.renderer import ProgressiveRenderer, RenderConfig
-from cuda_path_tracer_ss_tpu.ops import tonemap
-from cuda_path_tracer_ss_tpu.utils import rng
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render_sample
+from cuda_path_tracer_ss.render.renderer import ProgressiveRenderer, RenderConfig
+from cuda_path_tracer_ss.ops import tonemap
+from cuda_path_tracer_ss.utils import rng
 
 W = H = 16
 
@@ -157,9 +157,9 @@ def test_auto_pass_schedule_is_restart_invariant():
     index (4, 8, ..., capped doubling), NOT of restart history — a
     checkpoint taken at any pass boundary resumes with the exact same
     boundaries, preserving bit-identical float accumulation order."""
-    from cuda_path_tracer_ss_tpu.models import presets
-    from cuda_path_tracer_ss_tpu.models.camera import Camera
-    from cuda_path_tracer_ss_tpu.render.renderer import (ProgressiveRenderer,
+    from cuda_path_tracer_ss.models import presets
+    from cuda_path_tracer_ss.models.camera import Camera
+    from cuda_path_tracer_ss.render.renderer import (ProgressiveRenderer,
                                                          RenderConfig)
 
     cfg = RenderConfig(width=8, height=8, spp=4000, engine="jnp")

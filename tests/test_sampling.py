@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.ops.sampling import (
+from cuda_path_tracer_ss.ops.sampling import (
     beckmann_direction, lambert_direction, phong_direction, rotate_y_to)
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3
+from cuda_path_tracer_ss.ops.vec import Vec3
 
 N = 200_000
 

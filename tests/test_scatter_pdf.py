@@ -12,9 +12,9 @@ phong_pdf/beckmann_pdf alone are covered by tests/test_sampling.py.
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.ops.bsdf import (
+from cuda_path_tracer_ss.ops.bsdf import (
     MaterialLookup, scatter, scatter_lobe_pdfs)
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3
+from cuda_path_tracer_ss.ops.vec import Vec3
 
 N_SAMPLES = 200_000
 N_QUAD = 400_000

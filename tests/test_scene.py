@@ -1,7 +1,7 @@
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.utils.msvc_rand import MsvcRand
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.utils.msvc_rand import MsvcRand
 
 
 def test_msvc_rand_known_sequence():

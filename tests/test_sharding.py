@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.parallel import mesh as mesh_lib
-from cuda_path_tracer_ss_tpu.parallel import sharding
-from cuda_path_tracer_ss_tpu.render import integrator, inverse
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.parallel import mesh as mesh_lib
+from cuda_path_tracer_ss.parallel import sharding
+from cuda_path_tracer_ss.render import integrator, inverse
 
 W = H = 16
 SPP = 4
@@ -137,66 +137,12 @@ def test_2d_mesh_pixel_and_sample_sharding(setup):
 
 
 @pytest.mark.slow
-def test_megakernel_diff_sharded_trains_multi_device():
-    """Multi-chip training on the FUSED engine: the pixel-sharded
-    differentiable megakernel (replay VJP per tile, parameter grads
-    all-reduced by the shard_map transpose) produces the same image and the
-    same gradients as the single-device diff renderer — identical streams,
-    only the reduction order differs. Interpret mode on the CPU mesh."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel_vjp import (
-        render_megakernel_diff, render_megakernel_diff_sharded)
-
-    scene = presets.cornell()
-    cp = integrator.camera_arrays(Camera())
-    packed = pack_scene(scene)
-    mesh = mesh_lib.make_mesh(2)
-    spp, bounces = 2, 3
-    target = jnp.zeros((H, W, 3), jnp.float32)
-
-    def loss_single(mats):
-        from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import PackedScene
-        p = PackedScene(packed.spheres, packed.triangles, mats,
-                        packed.point_lights, packed.area_lights,
-                        packed.background, packed.counts)
-        img = render_megakernel_diff(p, cp, 7, W, H, spp,
-                                     max_bounces=bounces, interpret=True)
-        return jnp.mean((img - target) ** 2), img
-
-    def loss_sharded(mats):
-        from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import PackedScene
-        p = PackedScene(packed.spheres, packed.triangles, mats,
-                        packed.point_lights, packed.area_lights,
-                        packed.background, packed.counts)
-        img = render_megakernel_diff_sharded(
-            p, cp, 7, W, H, spp, mesh, max_bounces=bounces, block_rows=1,
-            interpret=True)
-        return jnp.mean((img - target) ** 2), img
-
-    (v1, img1), g1 = jax.jit(jax.value_and_grad(loss_single,
-                                                has_aux=True))(
-        packed.materials)
-    (v2, img2), g2 = jax.jit(jax.value_and_grad(loss_sharded,
-                                                has_aux=True))(
-        packed.materials)
-    # same estimator, same per-pixel streams; XLA fuses the ops around the
-    # pallas_call differently under shard_map, so agreement is to float
-    # op-order noise (measured: 1-2 ulp on a couple of pixels), not bitwise
-    np.testing.assert_allclose(np.asarray(img1), np.asarray(img2),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(float(v1), float(v2), rtol=1e-6)
-    a, b = np.asarray(g1), np.asarray(g2)
-    np.testing.assert_allclose(b, a, rtol=1e-4,
-                               atol=1e-6 * (np.abs(a).max() + 1e-12))
-
-
-@pytest.mark.slow
 def test_megakernel_sharded_covers_indivisible_images():
     """Regression (self-review finding): per-device pixel counts must
     ceil-divide BEFORE block rounding — flooring under-covered the image
     when n // n_dev landed exactly on a block boundary (e.g. 257 pixels on
-    2 devices at 128-lane blocks lost the last pixel)."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
+    2 devices at 128-ray tiles lost the last pixel)."""
+    from cuda_path_tracer_ss.ops.pallas.megakernel import (
         pack_scene, render_megakernel, render_megakernel_sharded)
 
     scene = presets.cornell_empty()
@@ -204,18 +150,12 @@ def test_megakernel_sharded_covers_indivisible_images():
     packed = pack_scene(scene)
     mesh = mesh_lib.make_mesh(2)
     Wn, Hn = 257, 1
-    # interpret-mode kernels on the CPU mesh
-    import cuda_path_tracer_ss_tpu.ops.pallas.megakernel as mk
+    # interpret-mode kernels on the CPU mesh, through the real sharded
+    # entry point
     single = np.asarray(render_megakernel(packed, cp, 3, Wn, Hn, 1,
-                                          max_bounces=2, block_rows=1,
-                                          interpret=True))
-
-    # round 5: render_megakernel_sharded grew an interpret knob (the fused
-    # bidir sharded wrapper runs through it), so the coverage check now
-    # exercises the REAL sharded entry point on the CPU mesh
+                                          max_bounces=2, interpret=True))
     out = np.asarray(render_megakernel_sharded(
-        packed, cp, 3, Wn, Hn, 1, mesh, max_bounces=2, block_rows=1,
-        interpret=True))
+        packed, cp, 3, Wn, Hn, 1, mesh, max_bounces=2, interpret=True))
     np.testing.assert_array_equal(out, single)
 
 
@@ -235,7 +175,7 @@ def test_lighttrace_sharded_matches_single():
     2e-5, max abs 1.9e-4 at 4096 paths."""
     scene = presets.cornell_lambert()
     cp = integrator.camera_arrays(Camera())
-    from cuda_path_tracer_ss_tpu.render.lighttrace import render_lighttrace
+    from cuda_path_tracer_ss.render.lighttrace import render_lighttrace
     single = np.asarray(render_lighttrace(scene, cp, W, H, 4096, 0,
                                           max_bounces=BOUNCES))
     mesh = mesh_lib.make_mesh(8, axis=mesh_lib.PATH_AXIS)
@@ -256,42 +196,3 @@ def test_lighttrace_sharded_requires_path_axis():
         sharding.render_lighttrace_sharded(scene, cp, W, H, 4096, 0, mesh)
 
 
-@pytest.mark.slow
-def test_fused_bidir_sharded_matches_single_device():
-    """Round 5 (VERDICT r4 ask #8): the FUSED engines get sharded
-    wrappers — render_lighttrace_fast_sharded (PATH_AXIS + psum splat
-    merge around the light kernel) and render_bidir_fast_sharded (pixel
-    mesh for the physical megakernel half + path mesh for the light
-    half). Global-index streams make the forward half bitwise vs
-    single-device; the light half matches up to splat-sum order."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.lightkernel import (
-        render_lighttrace_fast, render_lighttrace_fast_sharded)
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    from cuda_path_tracer_ss_tpu.render.bidir import (
-        render_bidir_fast, render_bidir_fast_sharded)
-
-    scene = presets.caustic()
-    cp = integrator.camera_arrays(Camera())
-    packed = pack_scene(scene)
-    W = H = 16
-    spp, n_paths, bounces = 2, 1024, 3
-
-    mesh_paths = mesh_lib.make_mesh(2, axis=mesh_lib.PATH_AXIS)
-    lt1 = np.asarray(render_lighttrace_fast(
-        packed, cp, 5, W, H, n_paths, max_bounces=bounces, block_rows=1,
-        interpret=True))
-    lt8 = np.asarray(render_lighttrace_fast_sharded(
-        packed, cp, 5, W, H, n_paths, mesh_paths, max_bounces=bounces,
-        block_rows=1, interpret=True))
-    np.testing.assert_allclose(lt8, lt1, rtol=2e-5,
-                               atol=2e-6 * max(lt1.max(), 1.0))
-
-    mesh_pixels = mesh_lib.make_mesh(2)
-    bi1 = np.asarray(render_bidir_fast(
-        packed, cp, W, H, spp, n_paths, 5, max_bounces=bounces,
-        interpret=True))
-    bi8 = np.asarray(render_bidir_fast_sharded(
-        packed, cp, W, H, spp, n_paths, 5, mesh_pixels, mesh_paths,
-        max_bounces=bounces, interpret=True, block_rows=1))
-    np.testing.assert_allclose(bi8, bi1, rtol=2e-5,
-                               atol=2e-6 * max(bi1.max(), 1.0))

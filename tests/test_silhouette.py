@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
-from cuda_path_tracer_ss_tpu.render import inverse, silhouette
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder
+from cuda_path_tracer_ss.render import inverse, silhouette
+from cuda_path_tracer_ss.render.integrator import camera_arrays
 
 W = H = 32
 SPP = 96
@@ -112,7 +112,7 @@ def test_boundary_vanishes_for_materials_and_occluded_curves():
     fields = ("materials.emission", "sph_radius")
     params = inverse.extract_params(scene, fields)
     img_target = jnp.zeros((H, W, 3), jnp.float32)
-    from cuda_path_tracer_ss_tpu.render.integrator import render
+    from cuda_path_tracer_ss.render.integrator import render
     img = render(inverse.merge_params(scene, params), cp, W, H, SPP, SEED,
                  max_bounces=BOUNCES, live_cutoff=None)
     dL_dI = silhouette.mse_adjoint(img, img_target)
@@ -143,41 +143,11 @@ def test_boundary_vanishes_for_materials_and_occluded_curves():
     assert abs(float(np.asarray(bnd_o["sph_radius"])[0])) < 0.02 * base_r
 
 
-@pytest.mark.slow
-def test_boundary_with_pallas_interior_engine():
-    """invert(silhouette=True, engine='pallas'): the interior gradient
-    comes from the megakernel's replay VJP (grad_mode='geo' for the
-    sphere fields), the boundary term from the jnp edge sampler — the
-    combined gradient must match the all-jnp combination (same streams,
-    same estimator, two differentiation routes)."""
-    scene = _emissive_sphere_scene()
-    cp = camera_arrays(Camera())
-    target = jnp.zeros((H, W, 3), jnp.float32)
-    fields = ("sph_radius", "sph_center")
-    params = inverse.extract_params(scene, fields)
-    kw = dict(max_bounces=BOUNCES, n_sphere=256, boundary_spp=4)
-    vg_jnp = silhouette.make_grad_with_boundary(
-        scene, cp, target, fields, W, H, SPP, engine="jnp", **kw)
-    # interpret mode = the same kernels on CPU (the TPU suite covers the
-    # compiled path); invert() itself forbids interpret per-step training
-    vg_pal = silhouette.make_grad_with_boundary(
-        scene, cp, target, fields, W, H, SPP, engine="pallas_interpret",
-        **kw)
-    v1, g1 = vg_jnp(params, SEED)
-    v2, g2 = vg_pal(params, SEED)
-    np.testing.assert_allclose(float(v1), float(v2), rtol=1e-5)
-    for k in fields:
-        a, b = np.asarray(g1[k]), np.asarray(g2[k])
-        scale = np.abs(a).max() + 1e-9
-        np.testing.assert_allclose(b, a, atol=2e-3 * scale, rtol=1e-2,
-                                   err_msg=k)
-
-
 def _shadow_scene():
     """Floor + overhead area light + a dark blocker sphere between them:
     the loss is dominated by the sphere's CAST SHADOW on the floor (the
     sphere itself is black-on-black to the camera)."""
-    from cuda_path_tracer_ss_tpu.models.scene import translate
+    from cuda_path_tracer_ss.models.scene import translate
     b = SceneBuilder()
     md = b.add_material(MaterialSpec(diffuse=(0.9, 0.9, 0.9), diff_avg=0.8))
     n = (0.0, 1.0, 0.0)  # floor at y=-2, facing up
@@ -261,7 +231,7 @@ def test_camera_boundary_grad_matches_fd():
     (pos z) changes coverage purely through silhouette motion — interior
     AD sees ~nothing; boundary_grad(with_camera=True) must close to FD."""
     import jax
-    from cuda_path_tracer_ss_tpu.render.integrator import render
+    from cuda_path_tracer_ss.render.integrator import render
 
     scene = _emissive_sphere_scene()
     cp = camera_arrays(Camera())
@@ -298,7 +268,7 @@ def test_triangle_blocker_shadow_grad_matches_fd():
     quad floats between the overhead light and the floor; moving its
     vertices sweeps the shadow. Interior AD sees nothing from the
     visibility flip; the projected-edge boundary term must close to FD."""
-    from cuda_path_tracer_ss_tpu.models.scene import translate
+    from cuda_path_tracer_ss.models.scene import translate
     b = SceneBuilder()
     md = b.add_material(MaterialSpec(diffuse=(0.9, 0.9, 0.9), diff_avg=0.8))
     n = (0.0, 1.0, 0.0)
@@ -351,7 +321,7 @@ def test_glossy_receiver_shadow_grad_matches_fd():
     frustum), the light above-front, the blocker between. Measured during
     bring-up: FD -2.33e-4, shadow boundary term alone -1.82e-4 (the rest
     is interior AD)."""
-    from cuda_path_tracer_ss_tpu.models.scene import translate
+    from cuda_path_tracer_ss.models.scene import translate
     b = SceneBuilder()
     md = b.add_material(MaterialSpec(diffuse=(0.15, 0.15, 0.15),
                                      diff_avg=0.1,
@@ -449,7 +419,7 @@ def _mirror_sphere_scene():
     image of the sphere is its reflection — so every sph_* gradient of an
     image loss is carried by the reflected-silhouette (indirect
     visibility) curve family alone."""
-    from cuda_path_tracer_ss_tpu.models.scene import MAT_FLAG_PURE_REFLECTION
+    from cuda_path_tracer_ss.models.scene import MAT_FLAG_PURE_REFLECTION
     b = SceneBuilder()
     mm = b.add_material(MaterialSpec(
         diffuse=(0.0, 0.0, 0.0), diff_avg=0.0, specular=(1.0, 1.0, 1.0),
@@ -515,7 +485,7 @@ def test_mirror_reflected_edge_grad_matches_fd():
     """Triangle edges seen in a mirror: an off-frustum emissive triangle
     whose only image is its reflection — every vertex gradient of the
     image loss is a reflected-edge boundary term."""
-    from cuda_path_tracer_ss_tpu.models.scene import MAT_FLAG_PURE_REFLECTION
+    from cuda_path_tracer_ss.models.scene import MAT_FLAG_PURE_REFLECTION
     b = SceneBuilder()
     mm = b.add_material(MaterialSpec(
         diffuse=(0.0, 0.0, 0.0), diff_avg=0.0, specular=(1.0, 1.0, 1.0),
@@ -576,7 +546,7 @@ def test_invert_sphere_center_through_mirror():
     """End-to-end inverse rendering where the sphere's ONLY image is its
     reflection: gradient descent on sph_center driven entirely by the
     reflected-silhouette boundary term recovers the true position."""
-    from cuda_path_tracer_ss_tpu.render.integrator import render
+    from cuda_path_tracer_ss.render.integrator import render
     scene_true = _mirror_sphere_scene()
     cp = camera_arrays(Camera())
     bounces = 3
@@ -601,7 +571,7 @@ def _mirror_shadow_scene():
     45-degree flat mirror: the cast shadow is visible only as a
     reflection, so its boundary gradient exists only if the shadow term
     follows the mirror chain to the reflected receiver."""
-    from cuda_path_tracer_ss_tpu.models.scene import (
+    from cuda_path_tracer_ss.models.scene import (
         MAT_FLAG_PURE_REFLECTION, translate)
     b = SceneBuilder()
     mm = b.add_material(MaterialSpec(
@@ -715,7 +685,7 @@ def test_unsampled_reflection_detector_warns():
     # unsampled family); the area light is outside the fov
     b.add_sphere((0.0, 0.0, -4.0), 1.8, m_mirror)
     b.add_sphere((0.0, 0.0, 7.0), 6.0, m_diff)
-    from cuda_path_tracer_ss_tpu.models.scene import (rotate_deg, scale,
+    from cuda_path_tracer_ss.models.scene import (rotate_deg, scale,
                                                       translate)
     b.add_area_light(translate((0.0, 5.5, -3.0)) @ rotate_deg(90, (1, 0, 0))
                      @ scale((2.0,) * 3), m_light, (30.0, 30.0, 30.0))

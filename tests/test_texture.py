@@ -7,14 +7,13 @@ sharded-training certification live here."""
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
-from cuda_path_tracer_ss_tpu.ops.texture import sample_bilinear, sphere_uv
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3
-from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.models.scene import MaterialSpec, SceneBuilder
+from cuda_path_tracer_ss.ops.texture import sample_bilinear, sphere_uv
+from cuda_path_tracer_ss.ops.vec import Vec3
+from cuda_path_tracer_ss.render.integrator import camera_arrays, render
 
 
 def _quad_scene(tex=True, nmap=False, sphere=False):
@@ -116,13 +115,11 @@ def test_normal_map_changes_shading_finite():
 @pytest.mark.slow  # 22 s; the 7 s OBJ textured-mesh megakernel parity
 # test keeps textured cross-engine coverage in the fast gate
 def test_textured_megakernel_matches_jnp_per_pixel():
-    """Round 4 (VERDICT r3 ask #3): the fused kernel applies color AND
-    normal maps itself — per-lane texel gathers via Mosaic's lane-dim
-    dynamic_gather — and must match the jnp engine per pixel (identical
+    """The fused kernel applies color AND normal maps itself — per-lane
+    texel gathers — and must match the jnp engine per pixel (identical
     streams, mirrored apply_maps arithmetic incl. the shared polynomial
-    atan2/asin). Measured during bring-up: max |diff| ~1e-7 on all three
-    textured cases + the showcase preset."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
+    atan2/asin)."""
+    from cuda_path_tracer_ss.ops.pallas.megakernel import (
         pack_scene, render_megakernel)
     cp = camera_arrays(Camera())
     for scene in (_quad_scene(), _quad_scene(sphere=True),
@@ -136,8 +133,8 @@ def test_textured_megakernel_matches_jnp_per_pixel():
 
 @pytest.mark.slow
 def test_textured_preset_megakernel_parity():
-    from cuda_path_tracer_ss_tpu.models import presets
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
+    from cuda_path_tracer_ss.models import presets
+    from cuda_path_tracer_ss.ops.pallas.megakernel import (
         pack_scene, render_megakernel)
     scene = presets.textured()
     cp = camera_arrays(Camera())
@@ -148,130 +145,11 @@ def test_textured_preset_megakernel_parity():
     np.testing.assert_allclose(mk, jn, rtol=0, atol=1e-5)
 
 
-def test_textured_diff_renderer_gating():
-    """Round 5 (final phase): EVERY texture/mode combination trains on
-    the fast engine — 'linear' for throughput-linear fields,
-    full/physical/geo for color AND normal maps (the perturbation
-    pullback carries the tangent frame's edge chain in geo mode). The
-    field guard still rejects fields no engine mode covers."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel_vjp import (
-        render_megakernel_diff)
-    from cuda_path_tracer_ss_tpu.render import inverse
-    cp = camera_arrays(Camera())
-    scene = _quad_scene()
-    # every grad mode RUNS on a normal-mapped scene now — parity is
-    # pinned in test_nmap_full_mode_grads_match_jnp; here just check no
-    # gate fires
-    for gm in ("linear", "full", "geo"):
-        render_megakernel_diff(pack_scene(_quad_scene(nmap=True)), cp, 0,
-                               8, 8, 1, max_bounces=2, interpret=True,
-                               grad_mode=gm)
-    # field gating: full/geo fields OK on textured scenes of both kinds
-    inverse.check_engine_fields("pallas", ["materials.roughness",
-                                           "sph_center", "tri_v0"],
-                                scene=scene)
-    inverse.check_engine_fields("pallas", ["materials.roughness",
-                                           "textures", "tri_v0"],
-                                scene=_quad_scene(nmap=True))
-    # ...but an unsupported field still raises loudly
-    with pytest.raises(ValueError, match="no gradient"):
-        inverse.check_engine_fields("pallas", ["materials.spec_exp2"],
-                                    scene=_quad_scene(nmap=True))
-    # physical + textured is allowed on both kinds of maps
-    inverse.check_engine_fields("pallas", ["materials.diffuse"],
-                                physical=True, scene=scene)
-    inverse.check_engine_fields("pallas", ["materials.diffuse",
-                                           "textures"],
-                                physical=True, scene=_quad_scene(nmap=True))
-    # the allowed combination passes
-    inverse.check_engine_fields(
-        "pallas", ["textures", "materials.diffuse"], scene=scene)
-
-
-def test_textured_pallas_grads_match_jnp():
-    """Round 5 (VERDICT r4 ask #1): textured scenes train on the fast
-    engine. The replay backward kernel re-simulates the texture block and
-    scatters color-map texel cotangents via one-hot matmuls; gradients
-    for 'textures' + the throughput-linear fields must match jax.grad of
-    the jnp engine on identical streams. Measured at this config:
-    texels 9.9e-8, diffuse 1.9e-7, pl_power 9.0e-8 max RELATIVE error —
-    the asserted band is slack over that."""
-    from cuda_path_tracer_ss_tpu.render import inverse
-
-    scene = _quad_scene()
-    cp = camera_arrays(Camera())
-    fields = ["textures", "materials.diffuse", "al_power", "pl_power"]
-    target = jnp.zeros((12, 12, 3), jnp.float32)
-    params = inverse.extract_params(scene, fields)
-    gj = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                    max_bounces=2, engine="jnp"))(
-        params, jnp.int32(0))
-    gp = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                    max_bounces=2,
-                                    engine="pallas_interpret",
-                                    field_names=fields))(
-        params, jnp.int32(0))
-    for k in fields:
-        np.testing.assert_allclose(
-            np.asarray(gp[k]), np.asarray(gj[k]), rtol=2e-4, atol=1e-6,
-            err_msg=k)
-    # texel gradients are real, not structurally zero
-    assert np.abs(np.asarray(gj["textures"])).max() > 1e-5
-    # non-texel fields only: the texel scatter is compiled OUT
-    # (tex_grads=False) and the remaining gradients still match
-    f2 = ["materials.diffuse"]
-    p2 = inverse.extract_params(scene, f2)
-    g2 = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                    max_bounces=2,
-                                    engine="pallas_interpret",
-                                    field_names=f2))(p2, jnp.int32(0))
-    np.testing.assert_allclose(np.asarray(g2["materials.diffuse"]),
-                               np.asarray(gj["materials.diffuse"]),
-                               rtol=2e-4, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_textured_pallas_grads_sphere_multirow_atlas():
-    """Procedural sphere UVs + an atlas spilling multiple 128-texel rows
-    (R > 1): exercises the row-masked texel scatter and the idx/weight
-    replay on curved geometry."""
-    from cuda_path_tracer_ss_tpu.render import inverse
-
-    b = SceneBuilder()
-    rng_ = np.random.default_rng(3)
-    tex = rng_.uniform(0.1, 0.9, size=(12, 24, 3)).astype(np.float32)
-    tid = b.add_texture(tex)  # 288 texels -> R=3
-    m = b.add_material(MaterialSpec(diffuse=(0.9, 0.8, 0.7), diff_avg=0.7,
-                                    texture=tid))
-    b.add_sphere((0.0, 0.0, -4.0), 1.6, m)
-    b.add_point_light((0.5, 0.5, -1.0), (50.0, 50.0, 50.0))
-    b.background = np.full(3, 0.1, np.float32)
-    scene = b.build()
-    cp = camera_arrays(Camera())
-    fields = ["textures", "materials.diffuse"]
-    target = jnp.zeros((12, 12, 3), jnp.float32)
-    params = inverse.extract_params(scene, fields)
-    gj = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                    max_bounces=2, engine="jnp"))(
-        params, jnp.int32(0))
-    gp = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                    max_bounces=2,
-                                    engine="pallas_interpret",
-                                    field_names=fields))(
-        params, jnp.int32(0))
-    for k in fields:
-        np.testing.assert_allclose(
-            np.asarray(gp[k]), np.asarray(gj[k]), rtol=2e-4, atol=1e-6,
-            err_msg=k)
-    assert np.abs(np.asarray(gj["textures"])).max() > 1e-6
-
-
 def test_untextured_scene_is_unchanged():
     """num_textures == 0 bypasses apply_maps entirely — bit-identical to
     the pre-texture renderer (golden tests guard this globally; this is
     the targeted check that the bypass branch exists)."""
-    from cuda_path_tracer_ss_tpu.models import presets
+    from cuda_path_tracer_ss.models import presets
     scene = presets.cornell()
     assert scene.num_textures == 0
     cp = camera_arrays(Camera())
@@ -283,8 +161,8 @@ def test_untextured_scene_is_unchanged():
 def test_obj_vt_and_map_kd_roundtrip(tmp_path):
     """OBJ vt records + MTL map_Kd: the loaded quad renders with the PNG's
     colors on the right sides."""
-    from cuda_path_tracer_ss_tpu.utils.image import write_png
-    from cuda_path_tracer_ss_tpu.utils.obj import add_obj_with_mtl
+    from cuda_path_tracer_ss.utils.image import write_png
+    from cuda_path_tracer_ss.utils.obj import add_obj_with_mtl
 
     teximg = np.zeros((2, 2, 3), np.uint8)
     teximg[:, 0] = (255, 20, 20)
@@ -318,7 +196,7 @@ def test_inverse_recovers_texture_content():
     """Texture TEXELS are trainable: starting from gray, gradient descent
     on the image loss recovers the checker's red/blue split — inverse
     texture painting, a capability far beyond the reference."""
-    from cuda_path_tracer_ss_tpu.render import inverse
+    from cuda_path_tracer_ss.render import inverse
 
     target_scene = _quad_scene()
     cp = camera_arrays(Camera())
@@ -336,14 +214,14 @@ def test_inverse_recovers_texture_content():
 
 
 def test_obj_textured_mesh_on_megakernel(tmp_path):
-    """Bring-your-own textured mesh on the FAST engine (round 4): an OBJ
-    quad with vt records + map_Kd renders per-pixel identical to the jnp
-    engine through the megakernel's texture block."""
-    from cuda_path_tracer_ss_tpu.models.scene import SceneBuilder
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import (
+    """Bring-your-own textured mesh on the fused kernel: an OBJ quad with
+    vt records + map_Kd renders per-pixel identical to the jnp engine
+    through the kernel's texture block (interpret mode)."""
+    from cuda_path_tracer_ss.models.scene import SceneBuilder
+    from cuda_path_tracer_ss.ops.pallas.megakernel import (
         pack_scene, render_megakernel)
-    from cuda_path_tracer_ss_tpu.utils.image import write_png
-    from cuda_path_tracer_ss_tpu.utils.obj import add_obj_with_mtl
+    from cuda_path_tracer_ss.utils.image import write_png
+    from cuda_path_tracer_ss.utils.obj import add_obj_with_mtl
 
     teximg = np.zeros((2, 2, 3), np.uint8)
     teximg[:, 0] = (255, 20, 20)
@@ -372,149 +250,3 @@ def test_obj_textured_mesh_on_megakernel(tmp_path):
     assert jn[6:10, 2:6, 0].mean() > 2 * jn[6:10, 2:6, 2].mean()
 
 
-@pytest.mark.slow  # ~84 s of interpret-mode kernel builds
-def test_textured_full_mode_grads_match_jnp():
-    """Round 5 phase 2: the FULL path adjoint trains color-textured
-    scenes — the UV-swim chain (d tex/d(u,v) through the triangle dual
-    basis / the sphere's polynomial-uv normal partials, into the shared
-    hit chain) makes geometry/camera/sampled-direction fields exact
-    again. Gradients must match jax.grad of the jnp engine (whose
-    autodiff differentiates the SAME polynomial uv functions) on
-    identical streams — textured quad (tri uv) AND textured sphere
-    (procedural uv)."""
-    from cuda_path_tracer_ss_tpu.render import inverse
-
-    cp = camera_arrays(Camera())
-    target = jnp.zeros((12, 12, 3), jnp.float32)
-    for scene, fields, phys in (
-            (_quad_scene(), ["textures", "materials.roughness",
-                             "pl_pos"], False),
-            (_quad_scene(sphere=True), ["sph_center", "sph_radius",
-                                        "textures"], False),
-            # physical estimator on a color-textured scene (round 5,
-            # late): the direct-phase vjp's modulated-albedo cotangents
-            # defer into the same A_alb split
-            (_quad_scene(), ["textures", "materials.diffuse",
-                             "pl_pos"], True),
-            # geo mode (round 5, later still): triangle-VERTEX training
-            # on a textured mesh — the fixed-p metric-solve vertex terms
-            # of the uv-swim chain compose with the hit chain's t-vertex
-            # terms to match jnp's Moller-Trumbore chain in total
-            (_quad_scene(), ["tri_v0", "tri_v1", "tri_v2",
-                             "textures"], False),
-    ):
-        params = inverse.extract_params(scene, fields)
-        gj = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                        max_bounces=2, engine="jnp",
-                                        physical=phys))(
-            params, jnp.int32(0))
-        gp = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                        max_bounces=2,
-                                        engine="pallas_interpret",
-                                        physical=phys,
-                                        field_names=fields))(
-            params, jnp.int32(0))
-        for k in fields:
-            a, b = np.asarray(gj[k]), np.asarray(gp[k])
-            if a.size == 0:
-                continue
-            np.testing.assert_allclose(
-                b, a, rtol=5e-4,
-                atol=2e-6 * (np.abs(a).max() + 1e-12), err_msg=k)
-        assert np.abs(np.asarray(gj[fields[0]])).max() > 1e-7
-
-
-def test_nmap_full_mode_grads_match_jnp():
-    """Round 5, later still: NORMAL-mapped scenes train on the fast
-    engine. The reverse sweep pulls the total perturbed-normal cotangent
-    back through the exact tangent-frame math (jax.vjp over the same
-    formulas _texture_block runs — the perturbation Jacobian), scatters
-    nmap texel cotangents through the bilinear corners, and chains the
-    nmap fetch's d texel/d(u,v) into the uv-swim geometry routing.
-    Gradients must match jax.grad of the jnp engine (which autodiffs the
-    SAME formulas) on identical streams — triangle-uv quad, procedural-uv
-    sphere, and the physical estimator."""
-    from cuda_path_tracer_ss_tpu.render import inverse
-
-    cp = camera_arrays(Camera())
-    target = jnp.zeros((12, 12, 3), jnp.float32)
-    for scene, fields, phys in (
-            # 'textures' covers BOTH atlases here: color texels (via
-            # A_alb) and nmap texels (via the perturbation pullback)
-            (_quad_scene(nmap=True), ["textures", "materials.roughness",
-                                      "pl_pos"], False),
-            (_quad_scene(nmap=True, sphere=True),
-             ["sph_center", "sph_radius", "textures"], False),
-            (_quad_scene(nmap=True), ["textures", "materials.diffuse",
-                                      "pl_pos"], True),
-            # geo mode: the tangent frame (and uv) move with the
-            # triangle vertices — the pullback takes the edges as vjp
-            # inputs and accumulates (e1, e2) rows
-            (_quad_scene(nmap=True), ["tri_v0", "tri_v1", "tri_v2",
-                                      "textures"], False),
-    ):
-        params = inverse.extract_params(scene, fields)
-        gj = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                        max_bounces=2, engine="jnp",
-                                        physical=phys))(
-            params, jnp.int32(0))
-        gp = jax.grad(inverse.make_loss(scene, cp, target, 12, 12, 2,
-                                        max_bounces=2,
-                                        engine="pallas_interpret",
-                                        physical=phys,
-                                        field_names=fields))(
-            params, jnp.int32(0))
-        for k in fields:
-            a, b = np.asarray(gj[k]), np.asarray(gp[k])
-            if a.size == 0:
-                continue
-            np.testing.assert_allclose(
-                b, a, rtol=5e-4,
-                atol=2e-6 * (np.abs(a).max() + 1e-12), err_msg=k)
-        assert np.abs(np.asarray(gj[fields[0]])).max() > 1e-7
-
-
-@pytest.mark.slow
-def test_textured_training_sharded_matches_single_device():
-    """Round 5: the headline feature survives the mesh — textured-scene
-    training (texels + diffuse) through the SHARDED diff renderer on a
-    2-device CPU mesh produces the same loss and gradients as
-    single-device (global pixel streams; grads all-reduced by the
-    shard_map transpose)."""
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel_vjp import (
-        render_megakernel_diff, render_megakernel_diff_sharded)
-    from cuda_path_tracer_ss_tpu.parallel import mesh as mesh_lib
-    from cuda_path_tracer_ss_tpu.render import inverse
-
-    scene = _quad_scene()
-    cp = camera_arrays(Camera())
-    mesh = mesh_lib.make_mesh(2)
-    W = H = 16
-    target = jnp.zeros((H, W, 3), jnp.float32)
-    fields = ["textures", "materials.diffuse"]
-    params = inverse.extract_params(scene, fields)
-
-    def loss_single(p, seed):
-        s = inverse.merge_params(scene, p)
-        img = render_megakernel_diff(pack_scene(s), cp, seed, W, H, 2,
-                                     max_bounces=2, interpret=True,
-                                     grad_mode="linear")
-        return jnp.mean((img - target) ** 2)
-
-    def loss_sharded(p, seed):
-        s = inverse.merge_params(scene, p)
-        img = render_megakernel_diff_sharded(
-            pack_scene(s), cp, seed, W, H, 2, mesh, max_bounces=2,
-            block_rows=1, interpret=True, grad_mode="linear")
-        return jnp.mean((img - target) ** 2)
-
-    v1, g1 = jax.value_and_grad(loss_single)(params, jnp.int32(0))
-    v2, g2 = jax.value_and_grad(loss_sharded)(params, jnp.int32(0))
-    np.testing.assert_allclose(float(v1), float(v2), rtol=1e-6)
-    for k in fields:
-        a, b = np.asarray(g1[k]), np.asarray(g2[k])
-        np.testing.assert_allclose(b, a, rtol=1e-4,
-                                   atol=1e-6 * (np.abs(a).max() + 1e-12),
-                                   err_msg=k)
-    assert np.abs(np.asarray(g1["textures"])).max() > 1e-6

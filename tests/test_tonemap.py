@@ -3,7 +3,7 @@ compat mode (writeToPixelsKernel, CudaTracer.cu:63-104)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cuda_path_tracer_ss_tpu.ops import tonemap
+from cuda_path_tracer_ss.ops import tonemap
 
 
 def test_tonemap_clamps_and_gammas():

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.ops.compaction import live_count, partition_by_activity
-from cuda_path_tracer_ss_tpu.render.integrator import (
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.ops.compaction import live_count, partition_by_activity
+from cuda_path_tracer_ss.render.integrator import (
     camera_arrays, eye_rays_for_indices, initial_state, bounce,
     uniforms_per_bounce)
-from cuda_path_tracer_ss_tpu.utils import debug, image as image_io, profiling, rng
+from cuda_path_tracer_ss.utils import debug, image as image_io, profiling, rng
 
 
 def _state_after_one_bounce(scene, n=64):
@@ -110,7 +110,7 @@ def test_uniform_pair_range_and_determinism():
 
 
 def test_live_ray_stats_monotone():
-    from cuda_path_tracer_ss_tpu.render.integrator import live_ray_stats
+    from cuda_path_tracer_ss.render.integrator import live_ray_stats
     scene = presets.cornell()
     cp = camera_arrays(Camera())
     fracs = np.asarray(live_ray_stats(scene, cp, 16, 16,
@@ -121,9 +121,10 @@ def test_live_ray_stats_monotone():
 
 
 def test_packed_scene_layout_contract():
-    # Guards the kernel<->pack_scene column contract (an out-of-bounds SMEM
-    # read from a drifted material column count survived until review).
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
+    # Guards the kernel<->pack_scene column contract (an out-of-bounds
+    # table read from a drifted material column count survived until
+    # review).
+    from cuda_path_tracer_ss.ops.pallas.megakernel import pack_scene
 
     scene = presets.showcase()
     p = pack_scene(scene)
@@ -149,8 +150,8 @@ def test_packed_scene_layout_contract():
 
 
 def test_packed_scene_empty_bundles_padded():
-    from cuda_path_tracer_ss_tpu.models.scene import SceneBuilder, MaterialSpec
-    from cuda_path_tracer_ss_tpu.ops.pallas.megakernel import pack_scene
+    from cuda_path_tracer_ss.models.scene import SceneBuilder, MaterialSpec
+    from cuda_path_tracer_ss.ops.pallas.megakernel import pack_scene
 
     b = SceneBuilder()
     m = b.add_material(MaterialSpec(diffuse=(1, 1, 1), diff_avg=0.5))
@@ -164,7 +165,7 @@ def test_packed_scene_empty_bundles_padded():
 
 def test_persistent_compile_cache_config(tmp_path, monkeypatch):
     import jax
-    from cuda_path_tracer_ss_tpu.utils.compile_cache import (
+    from cuda_path_tracer_ss.utils.compile_cache import (
         enable_persistent_cache)
 
     prev = jax.config.jax_compilation_cache_dir
@@ -172,6 +173,7 @@ def test_persistent_compile_cache_config(tmp_path, monkeypatch):
         # conftest gates the cache off for CPU sessions; this test checks
         # the enable path itself, so lift the gate locally
         monkeypatch.delenv("CPT_NO_COMPILE_CACHE", raising=False)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         d = tmp_path / "xla_cache"
         got = enable_persistent_cache(str(d))
         assert got == str(d) and d.is_dir()
@@ -180,7 +182,6 @@ def test_persistent_compile_cache_config(tmp_path, monkeypatch):
         monkeypatch.setenv("CPT_NO_COMPILE_CACHE", "1")
         assert enable_persistent_cache(str(d)) is None
     finally:
-        # restore the process-global cache dir — later tests in this session
-        # (notably real-TPU runs whose conftest enabled the real cache)
-        # must not silently compile into the pytest tmp dir
+        # restore the process-global cache dir — later tests in this
+        # session must not silently compile into the pytest tmp dir
         jax.config.update("jax_compilation_cache_dir", prev)

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cuda_path_tracer_ss_tpu.ops.vec import Vec3, gather, where
+from cuda_path_tracer_ss.ops.vec import Vec3, gather, where
 
 
 def _v(*rows):

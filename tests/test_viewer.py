@@ -5,10 +5,10 @@ import threading
 import time
 import urllib.request
 
-from cuda_path_tracer_ss_tpu.models import presets
-from cuda_path_tracer_ss_tpu.models.camera import Camera
-from cuda_path_tracer_ss_tpu.render.renderer import ProgressiveRenderer, RenderConfig
-from cuda_path_tracer_ss_tpu.viewer import serve
+from cuda_path_tracer_ss.models import presets
+from cuda_path_tracer_ss.models.camera import Camera
+from cuda_path_tracer_ss.render.renderer import ProgressiveRenderer, RenderConfig
+from cuda_path_tracer_ss.viewer import serve
 
 
 def _get(port, path):
